@@ -5,7 +5,7 @@ calibratedSFM — src/viso.h:105-121); these are the Python equivalents.
 Runs end-to-end on the synthetic renderer in ~a minute on CPU:
 
     python examples/library_api.py                       # CPU
-    VISO_EXAMPLE_PLATFORM=tpu python examples/library_api.py
+    VISO_EXAMPLE_PLATFORM=gpu python examples/library_api.py
 """
 
 import os
@@ -17,9 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-# force the chosen platform on the LIVE config: some environments
-# pre-import jax with their own JAX_PLATFORMS, making the env var alone
-# too late (same pattern as tests/conftest.py)
+# pick the platform on the live config before any device is touched
 jax.config.update("jax_platforms",
                   os.environ.get("VISO_EXAMPLE_PLATFORM", "cpu"))
 

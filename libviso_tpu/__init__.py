@@ -1,11 +1,12 @@
-"""libviso_tpu: a TPU-native visual odometry / SfM engine.
+"""libviso_tpu: a JAX visual odometry / SfM engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the C++
+A from-scratch JAX/XLA re-design of the capabilities of the C++
 ``libviso`` reference (stereo visual odometry on KITTI + monocular calibrated
 SfM): Harris-corner detection, Sobel-patch descriptors, epipolar-gated
 descriptor matching with circular consistency, RANSAC + Gauss-Newton pose
 estimation, and pose chaining — all as fixed-shape, batched, jit-compiled
-computations designed for the MXU/VPU and `jax.sharding` meshes.
+computations that XLA compiles for one accelerator or a `jax.sharding`
+mesh of them.
 
 Layout (mirrors SURVEY.md §2 component inventory):
   ops/        device kernels: harris, sobel descriptors, matching, circle filter

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native VO engine.
+"""Configuration for the JAX VO engine.
 
 The reference scatters its configuration over compile-time constants, a
 runtime ``struct param`` (reference src/viso.h:58-72) and environment
@@ -58,8 +58,8 @@ class DetectorConfig:
     ``max_features`` is the target corner budget spread uniformly over
     ``nbinx * nbiny`` spatial bins (reference keeps
     ``max_features // (nbinx*nbiny)`` corners per bin, src/viso.cpp:944).
-    ``num_slots`` is the fixed keypoint tensor size (padded; multiple of 128
-    so descriptor matrices tile onto the MXU/VPU lanes).
+    ``num_slots`` is the fixed keypoint tensor size (padded to a multiple
+    of 128 so every matcher problem has one static shape).
     """
 
     max_features: int = 1200
@@ -71,13 +71,16 @@ class DetectorConfig:
     descriptor_radius: int = 5
     num_slots: int = 1280  # fixed keypoint tensor size (>= max_features)
     # Patch-gather implementation for the Sobel descriptor windows:
-    #   'onehot' — two chained 0/1-selection matmuls (columns then rows)
-    #              that ride the MXU; bitwise identical to 'take' (each
-    #              output has exactly one nonzero contribution, and the
-    #              bf16x3 passes reconstruct f32 exactly) at ~2x the
-    #              speed on TPU (docs/performance.md).
-    #   'take'   — flat XLA gather (scalar-unit bound).
-    descriptor_gather: str = "onehot"
+    #   'onehot'    — two chained 0/1-selection matmuls (columns then
+    #                 rows), bin-banded for binned keypoints; bitwise
+    #                 identical to 'take' (each output has exactly one
+    #                 nonzero contribution and the products run in full
+    #                 f32, ops/features.py::_SELECT_PRECISION).
+    #   'onehot_i8' — the same with int8 selectors; exact for
+    #                 integer-valued (uint8) images only.
+    #   'take'      — one flat XLA gather; the default, ~8% faster per
+    #                 full-width frame step than 'onehot' on an H100.
+    descriptor_gather: str = "take"
     # Beyond-reference options (BASELINE config 3):
     pyramid_levels: int = 1  # >1 enables multi-scale detection
     subpixel: bool = False   # quadratic subpixel corner refinement
@@ -88,8 +91,8 @@ class DetectorConfig:
     # sharpening restores it — measured ATE at blur sigma=3: 0.60 -> 0.08 m
     # with (sigma=3, amount=4).  Off by default (reference parity; also
     # amplifies sensor noise, so enable it when the per-frame `sharpness`
-    # stat collapses, not unconditionally).  Pure VPU shifted-adds that XLA
-    # fuses into the Harris pipeline (ops/features.py::unsharp_mask).
+    # stat collapses, not unconditionally).  Pure elementwise shifted-adds
+    # that XLA fuses into the Harris pipeline (ops/features.py::unsharp_mask).
     sharpen_sigma: float = 0.0   # Gaussian sigma [px]; 0 disables
     sharpen_amount: float = 4.0  # high-pass gain when enabled
     # Auto mode: apply the mask only on frames whose in-graph blur
@@ -148,7 +151,8 @@ class DetectorConfig:
 
     @property
     def descriptor_dim_padded(self) -> int:
-        """Descriptor length padded to a multiple of 128 (TPU lane width)."""
+        """Descriptor length padded to a multiple of 128 (121 -> 128 at
+        the default radius): the matcher and its tests rely on it."""
         return ((self.descriptor_dim + 127) // 128) * 128
 
 
@@ -157,7 +161,7 @@ class MatchConfig:
     """Descriptor matcher configuration (reference MatchParams, viso.cpp:48-75).
 
     The reference caps candidates at ``max_neighbors`` because its FLANN
-    radius search materializes a neighbor list; the dense TPU matcher scores
+    radius search materializes a neighbor list; the dense matcher scores
     every candidate inside the radius, a strict superset (deliberate,
     documented divergence — more candidates can only improve the best-match
     search).
@@ -167,33 +171,29 @@ class MatchConfig:
     # Strip-banded matcher (round 4, ops/matching.py): keypoints from
     # the binned detector are x-strip-ordered and the position gate
     # confines candidates to ceil((radius+2)/strip) strips either side,
-    # so the masked tensors shrink ~5x at KITTI scale.  MEASURED SLOWER
-    # on v5e and OFF by default: dense 0.205 vs banded 0.223 ms per
-    # frame triple (full step 0.950 -> 1.046) — XLA already fuses the
-    # dense gates into the argmin reduction pass, so the hand-counted
-    # mask traffic the banding saves never hits HBM, while the banded
-    # path pays real gather/scatter and batched-matmul layout costs.
-    # Same lesson as the Pallas block-sparse matcher postmortem
-    # (ops/pallas_fused_match.py), one level up the stack.  The
-    # implementation stays (tested equal-on-detector-output; may pay at
-    # larger N or on other backends); True + a caller-supplied frame
-    # width enables it.
+    # so the masked tensors shrink ~5x at KITTI scale.  OFF by default:
+    # XLA fuses the dense gates into the argmin reduction pass, so the
+    # mask traffic the banding saves need not reach device memory,
+    # while the banded path pays real gather/scatter costs.  Its speed
+    # on the GPU is not measured.  The implementation stays (tested
+    # equal-on-detector-output; may pay at larger N); True + a
+    # caller-supplied frame width enables it.
     banded: bool = False
     use_epipolar: bool = False
     sampson_thresh: float = 1.0
     use_ratio: bool = False
     ratio: float = 0.9
     # Descriptor distance.  'l2' (default since round 2) computes true
-    # Euclidean distance via the matmul identity so the (N1 x N2 x D)
-    # reduction rides the MXU (~10x faster kernel, ~1.5x frame rate);
-    # 'l1' reproduces the reference metric (NORM_L1,
-    # src/viso.cpp:989-992) on the VPU — strict-parity mode, CLI
-    # ``--metric l1``.  Equivalence evidence for the default flip:
-    # tests/test_matcher_equivalence.py — a 14-sequence battery over
-    # seeds, noise, densities, low/repetitive texture, and exposure
-    # drift; battery-wide median and geometric-mean ATE ratio within
-    # 15% of 1 and every frame solving under both metrics
-    # (VERDICT r1 next #1).
+    # Euclidean distance via the matmul identity, so the (N1 x N2 x D)
+    # reduction is one matrix product; 'l1' reproduces the reference
+    # metric (NORM_L1, src/viso.cpp:989-992) as a broadcast-reduce —
+    # strict-parity mode, CLI ``--metric l1``; 'l2q8' quantizes the
+    # descriptors to int8 for an integer product.  Equivalence evidence
+    # for the default flip: tests/test_matcher_equivalence.py — a
+    # 14-sequence battery over seeds, noise, densities, low/repetitive
+    # texture, and exposure drift; battery-wide median and geometric-mean
+    # ATE ratio within 15% of 1 and every frame solving under both
+    # metrics.
     metric: str = "l2"
 
     @staticmethod
@@ -241,9 +241,9 @@ class RansacConfig:
     # exit (serial loop); vmapped, the while_loop runs until the SLOWEST
     # lane finishes, and a single degenerate sample that never converges
     # pins every lane at the full 100.  Well-posed 3-point fits converge in
-    # well under 30 steps; capping the fit phase recovers ~2 ms/frame with
-    # no measurable trajectory change (the full `gn_iters` budget still
-    # applies to the accuracy-critical inlier refit).
+    # well under 30 steps; capping the fit phase cuts the slowest-lane
+    # trips with no measurable trajectory change (the full `gn_iters`
+    # budget still applies to the accuracy-critical inlier refit).
     fit_gn_iters: int = 30
     # Minimal-sample hypothesis estimator:
     #   'procrustes' (default) — closed-form 3D-3D Kabsch alignment
@@ -252,8 +252,8 @@ class RansacConfig:
     #                  current-frame points (the reference's OTHER
     #                  estimator, solveRigidMotion estimation.cpp:29-51 /
     #                  ransacRigidMotion viso.cpp:1101-1135) plus a short
-    #                  image-space polish.  Halves the solve stage
-    #                  (2.34 -> 1.27 ms) with trajectories bit-identical
+    #                  image-space polish.  Fewer solve-stage
+    #                  trips, with trajectories bit-identical
     #                  to 'gn' on every tested sequence — the
     #                  accuracy-critical inlier refit is the same GN
     #                  either way.  PARITY.md divergence #7.
@@ -268,9 +268,8 @@ class RansacConfig:
     # gn_iters budget from that support.  Measured (round 4): 3 steps
     # reproduce the 8-step worst-case ATE to 4 decimals across every
     # stress regime (clean/occl12/fast+occl/hard sprite battery +
-    # world frames, 3 seeds each, zero frame failures) while cutting
-    # the solve stage 0.374 -> 0.279 ms on v5e (serial-latency bound:
-    # fewer vmapped while_loop trips).
+    # world frames, 3 seeds each, zero frame failures) with fewer
+    # vmapped while_loop trips in the solve stage.
     procrustes_polish_iters: int = 3
     # Masked GN steps per while_loop iteration (results are bit-identical
     # for any factor — converged lanes freeze under the mask; the factor
@@ -340,14 +339,13 @@ class MonoConfig:
     # — the pose comes from est2 on the re-matched set.  'same'
     # (default) runs the full `method` twice: strict first-pass parity
     # with findEssentialMat (viso.cpp:1384).  '8pt' runs the
-    # ~2.5x-cheaper 8-point solver for the gate pass (49.5 -> 70.4 fps
-    # end-to-end, 120 with --mono-hyp=32) — measured ATE-equivalent on
+    # ~2.5x-cheaper 8-point solver for the gate pass — measured
+    # ATE-equivalent on
     # feature-rich configs (1200 pts: medians 0.060 vs 0.063 over 15
     # regime-seeds incl. noise and repetitive texture) but up to ~4x
     # worse on a sparser 900-point config (medians 0.094 vs 0.023) —
     # the cheap gate's F admits worse re-matches when correspondences
-    # are thin, so it stays OPT-IN (docs/performance.md "Monocular
-    # path").
+    # are thin, so it stays OPT-IN.
     first_pass: str = "same"
     # RANSAC hypothesis-selection quality (r5 estimator round,
     # geometry/essential.py::ransac_essential): 'msac' = truncated
@@ -361,8 +359,7 @@ class MonoConfig:
     # worst single-pair regression +39% — and does NOT rescue the
     # cheap 8pt gate pass
     # on sparse configs (its regression is the model class, not
-    # selection noise), so the fast knobs stay opt-in and the speed
-    # boundary stands (docs/performance.md "Monocular path").
+    # selection noise), so the fast knobs stay opt-in.
     scoring: str = "magsac"
     # Continuous truncated-linear refit weights instead of 0/1 inliers
     # (chi^2-style downweighting of near-threshold points).

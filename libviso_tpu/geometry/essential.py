@@ -2,12 +2,19 @@
 
 The reference's mono path calls OpenCV's ``findEssentialMat`` (5-point +
 RANSAC, src/viso.cpp:1384) and then *stops* — it never recovers R, t or
-chains poses (src/viso.cpp:1393-1395).  The TPU build offers both minimal
+chains poses (src/viso.cpp:1393-1395).  This build offers both minimal
 solvers inside a fully batched RANSAC — the **8-point** estimator (one
 batched SVD over all hypotheses) and the **Nister 5-point**
 (geometry/five_point.py, exact reference parity, robust to planar scenes) —
 and completes the pipeline: E -> (R, t) by cheirality voting,
 scale-ambiguous pose chaining.
+
+Every product here and in five_point.py states ``precision="highest"``.
+On a GPU the default is TF32 (11 significant bits), at which the mono
+path's per-frame rotations on an H100 departed from the CPU's by 2.2e-3
+rad instead of 2.4e-4.  Full f32 in any one group of products (5-point
+solver, RANSAC scoring and depths, pose refit and scale bundle) left
+0.9e-3 to 2.0e-3 rad, so all of them carry it.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ def eight_point_E(x1, x2, weights=None):
     h1 = e2h(x1)
     h2 = e2h(x2)
     # rows of the DLT system: kron(x1_h, x2_h) ordered for vec(E) row-major
-    A = jnp.einsum("...ni,...nj->...nij", h2, h1).reshape(
+    A = jnp.einsum("...ni,...nj->...nij", h2, h1, precision="highest").reshape(
         x1.shape[:-1] + (9,))
     if weights is not None:
         A = A * weights[..., None]
@@ -99,7 +106,7 @@ def _depths(R, t, x1, x2):
     x2_h x (R x1_h z1 + t) = 0 in least squares.
     """
     h1 = e2h(x1)  # (..., N, 3)
-    Rx1 = jnp.einsum("...ij,...nj->...ni", R, h1)
+    Rx1 = jnp.einsum("...ij,...nj->...ni", R, h1, precision="highest")
     h2 = e2h(x2)
     # cross-product matrix application: c = h2 x (Rx1 * z + t) = 0
     cross_R = jnp.cross(h2, Rx1)
@@ -109,7 +116,8 @@ def _depths(R, t, x1, x2):
     den = jnp.sum(cross_R * cross_R, axis=-1)
     z1 = num / jnp.maximum(den, 1e-12)
     X1 = h1 * z1[..., None]
-    X2 = jnp.einsum("...ij,...nj->...ni", R, X1) + t[..., None, :]
+    X2 = (jnp.einsum("...ij,...nj->...ni", R, X1, precision="highest")
+          + t[..., None, :])
     return z1, X2[..., 2]
 
 
@@ -130,8 +138,8 @@ def _sampson_residual(E, x1, x2):
     """
     h1 = e2h(x1)
     h2 = e2h(x2)
-    Ex1 = jnp.einsum("...ij,...nj->...ni", E, h1)
-    Etx2 = jnp.einsum("...ji,...nj->...ni", E, h2)
+    Ex1 = jnp.einsum("...ij,...nj->...ni", E, h1, precision="highest")
+    Etx2 = jnp.einsum("...ji,...nj->...ni", E, h2, precision="highest")
     num = jnp.sum(h2 * Ex1, axis=-1)
     den = (Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2
            + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2)
@@ -221,7 +229,7 @@ def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8,
 
         def resid(p):
             Rp = jnp.matmul(R, _expm_so3(p[:3]), precision="highest")
-            tp = t + jnp.einsum("ij,j->i", B, p[3:5])
+            tp = t + jnp.einsum("ij,j->i", B, p[3:5], precision="highest")
             tp = tp / jnp.maximum(jnp.linalg.norm(tp), 1e-12)
             E = jnp.matmul(_skew(tp), Rp, precision="highest")
             return _sampson_residual(E, x1, x2)
@@ -233,11 +241,11 @@ def refine_relative_pose(R, t, x1, x2, weights, iters: int = 8,
         J = jax.jacfwd(resid)(p0)                       # (N, 5)
         Jw = J * wr[:, None]
         H = jnp.matmul(J.T, Jw, precision="highest")    # (5, 5)
-        g = jnp.einsum("ni,n->i", Jw, r0)
+        g = jnp.einsum("ni,n->i", Jw, r0, precision="highest")
         lam = damping * jnp.trace(H) / 5.0 + 1e-12
         delta = -jnp.linalg.solve(H + lam * jnp.eye(5, dtype=H.dtype), g)
         R1 = jnp.matmul(R, _expm_so3(delta[:3]), precision="highest")
-        t1 = t + jnp.einsum("ij,j->i", B, delta[3:5])
+        t1 = t + jnp.einsum("ij,j->i", B, delta[3:5], precision="highest")
         t1 = t1 / jnp.maximum(jnp.linalg.norm(t1), 1e-12)
         # guard under the SAME weights (IRLS inner step must not be
         # judged across a weight change)
@@ -274,7 +282,7 @@ def depth_log_grads(R, t, x1, x2):
 
     def logz(p):
         Rp = jnp.matmul(R, _expm_so3(p[:3]), precision="highest")
-        tp = t + jnp.einsum("ij,j->i", B, p[3:5])
+        tp = t + jnp.einsum("ij,j->i", B, p[3:5], precision="highest")
         tp = tp / jnp.maximum(jnp.linalg.norm(tp), 1e-12)
         z1, z2 = _depths(Rp, tp, x1, x2)
         eps = jnp.asarray(1e-6, x1.dtype)
@@ -347,7 +355,7 @@ def pnp_refine_pose(R, t, X_prev, x_cur, weights, iters: int = 8,
         J = jax.jacfwd(resid)(p0)                       # (2N, 6)
         Jw = J * wi[:, None]
         H = jnp.matmul(J.T, Jw, precision="highest")
-        g = jnp.einsum("ni,n->i", Jw, r0)
+        g = jnp.einsum("ni,n->i", Jw, r0, precision="highest")
         lam = damping * jnp.trace(H) / 6.0 + 1e-12
         delta = -jnp.linalg.solve(H + lam * jnp.eye(6, dtype=H.dtype), g)
         R1 = jnp.matmul(R, _expm_so3(delta[:3]), precision="highest")
@@ -419,13 +427,13 @@ def three_view_bundle(R1, t1, x_a, R2, t2, x_b, x_c, z0, weights,
         pose perturbation p and its own log-depth perturbation du."""
         B1 = _t_basis(t1c)
         R1p = jnp.matmul(R1c, _expm_so3(p[0:3]), precision="highest")
-        t1p = t1c + jnp.einsum("ij,j->i", B1, p[3:5])
+        t1p = t1c + jnp.einsum("ij,j->i", B1, p[3:5], precision="highest")
         t1p = t1p / jnp.maximum(jnp.linalg.norm(t1p), 1e-12)
         R2p = jnp.matmul(R2c, _expm_so3(p[5:8]), precision="highest")
         t2p = t2c + p[8:11]
         Xb = jnp.exp(u_i + du) * hb_i
-        Xa = jnp.einsum("ij,j->i", R1p, Xb) + t1p
-        Xc = jnp.einsum("ji,j->i", R2p, Xb - t2p)
+        Xa = jnp.einsum("ij,j->i", R1p, Xb, precision="highest") + t1p
+        Xc = jnp.einsum("ji,j->i", R2p, Xb - t2p, precision="highest")
         ra = Xa[:2] / jnp.maximum(Xa[2], eps) - xa_i
         rc = Xc[:2] / jnp.maximum(Xc[2], eps) - xc_i
         return jnp.concatenate([ra, rc])
@@ -478,24 +486,28 @@ def three_view_bundle(R1, t1, x_a, R2, t2, x_b, x_c, z0, weights,
         # Jp: (N, 4, 11), Ju: (N, 4)
 
         JpW = Jp * wf[:, :, None]
-        H_pp = jnp.einsum("nri,nrj->ij", JpW, Jp)     # (11, 11)
-        h_pu = jnp.einsum("nri,nr->ni", JpW, Ju)      # (N, 11)
+        H_pp = jnp.einsum("nri,nrj->ij", JpW, Jp,
+                          precision="highest")        # (11, 11)
+        h_pu = jnp.einsum("nri,nr->ni", JpW, Ju,
+                          precision="highest")        # (N, 11)
         h_uu = jnp.sum(wf * Ju * Ju, axis=-1)         # (N,)
-        g_p = jnp.einsum("nri,nr->i", JpW, r)         # (11,)
+        g_p = jnp.einsum("nri,nr->i", JpW, r, precision="highest")  # (11,)
         g_u = jnp.sum(wf * Ju * r, axis=-1)           # (N,)
 
         lam = damping * jnp.trace(H_pp) / 11.0 + 1e-12
         lam_u = damping * h_uu + 1e-9
         d_uu = h_uu + lam_u
         S = (H_pp + lam * jnp.eye(11, dtype=H_pp.dtype)
-             - jnp.einsum("ni,nj->ij", h_pu / d_uu[:, None], h_pu))
-        gs = g_p - jnp.einsum("ni,n->i", h_pu, g_u / d_uu)
+             - jnp.einsum("ni,nj->ij", h_pu / d_uu[:, None], h_pu,
+                           precision="highest"))
+        gs = g_p - jnp.einsum("ni,n->i", h_pu, g_u / d_uu, precision="highest")
         dp = -jnp.linalg.solve(S, gs)
-        du = -(g_u + jnp.einsum("ni,i->n", h_pu, dp)) / d_uu
+        du = -(g_u + jnp.einsum("ni,i->n", h_pu, dp,
+                                precision="highest")) / d_uu
 
         B1 = _t_basis(t1c)
         R1n = jnp.matmul(R1c, _expm_so3(dp[0:3]), precision="highest")
-        t1n = t1c + jnp.einsum("ij,j->i", B1, dp[3:5])
+        t1n = t1c + jnp.einsum("ij,j->i", B1, dp[3:5], precision="highest")
         t1n = t1n / jnp.maximum(jnp.linalg.norm(t1n), 1e-12)
         R2n = jnp.matmul(R2c, _expm_so3(dp[5:8]), precision="highest")
         t2n = t2c + dp[8:11]

@@ -1,4 +1,4 @@
-"""Nister 5-point essential-matrix solver, TPU-native (SURVEY.md C3).
+"""Nister 5-point essential-matrix solver, batched (SURVEY.md C3).
 
 The reference's mono path relies on OpenCV's ``findEssentialMat`` — the
 Nister 5-point minimal solver inside RANSAC (src/viso.cpp:1384).  The
@@ -103,11 +103,12 @@ def _coefficient_matrix(basis):
     coeffs = jnp.concatenate(
         [nodes, jnp.ones(nodes.shape[:-1] + (1,), dtype)], axis=-1)  # (20,4)
     # E at every node: (..., 20, 3, 3)
-    En = jnp.einsum("ka,...aij->...kij", coeffs, basis)
+    En = jnp.einsum("ka,...aij->...kij", coeffs, basis, precision="highest")
     vals = _constraints(En)                                   # (..., 20, 10)
     vinv = jnp.asarray(_VINV, dtype)                          # (20, 20)
     # row r of M solves V @ M_r = vals[:, r]  ->  M = (Vinv @ vals).T
-    return jnp.swapaxes(jnp.einsum("jk,...ki->...ji", vinv, vals), -1, -2)
+    M_t = jnp.einsum("jk,...ki->...ji", vinv, vals, precision="highest")
+    return jnp.swapaxes(M_t, -1, -2)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +299,7 @@ def five_point_E(x1, x2):
     x2 = jnp.asarray(x2)
     h1 = e2h(x1)
     h2 = e2h(x2)
-    Q = jnp.einsum("...ni,...nj->...nij", h2, h1).reshape(
+    Q = jnp.einsum("...ni,...nj->...nij", h2, h1, precision="highest").reshape(
         x1.shape[:-1] + (9,))                                  # (..., 5, 9)
     _, _, vt = jnp.linalg.svd(Q, full_matrices=True)
     basis = vt[..., 5:9, :].reshape(x1.shape[:-2] + (4, 3, 3))
@@ -370,7 +371,8 @@ def five_point_E(x1, x2):
 
     ones = jnp.ones(xyz.shape[:-1] + (1,), xyz.dtype)
     coeff = jnp.concatenate([xyz, ones], axis=-1)
-    E = jnp.einsum("...ka,...aij->...kij", coeff, basis)       # (...,22,3,3)
+    E = jnp.einsum("...ka,...aij->...kij", coeff, basis,
+                   precision="highest")                          # (...,22,3,3)
     E = E / jnp.maximum(
         jnp.linalg.norm(E.reshape(E.shape[:-2] + (9,)), axis=-1),
         1e-30)[..., None, None]
@@ -406,15 +408,16 @@ def _polish_xyz(basis, xyz, iters: int = 4, damping: float = 1e-8):
     """
     def resid(c3, basis_):
         coeff4 = jnp.concatenate([c3, jnp.ones_like(c3[..., :1])], axis=-1)
-        E = jnp.einsum("a,aij->ij", coeff4, basis_)
+        E = jnp.einsum("a,aij->ij", coeff4, basis_, precision="highest")
         nrm = jnp.maximum(jnp.linalg.norm(E.reshape(9)), 1e-30)
         return _constraints(E / nrm)
 
     def step(c3, basis_):
         r = resid(c3, basis_)
         J = jax.jacfwd(resid)(c3, basis_)            # (10, 3)
-        A = J.T @ J + damping * jnp.eye(3, dtype=c3.dtype)
-        g = J.T @ r
+        A = (jnp.matmul(J.T, J, precision="highest")
+             + damping * jnp.eye(3, dtype=c3.dtype))
+        g = jnp.matmul(J.T, r, precision="highest")
         d = jnp.linalg.solve(A, g)
         c_new = c3 - d
         better = (jnp.sum(resid(c_new, basis_) ** 2) < jnp.sum(r ** 2))

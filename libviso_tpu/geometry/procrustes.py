@@ -63,7 +63,7 @@ def ransac_rigid_motion(key, A, B, valid=None, num_hypotheses=100,
 
     Mirrors the reference ``ransacRigidMotion`` (src/viso.cpp:1101-1135):
     N 3-point hypotheses, inliers are points with residual < thresh, best
-    support set wins.  TPU-native: sampling uses the Gumbel-top-k trick over
+    support set wins.  Batched: sampling uses the Gumbel-top-k trick over
     the validity mask, the Procrustes solve batches over the hypothesis axis.
 
     Args:
@@ -202,10 +202,10 @@ def solve_rigid_motion_horn(A, B, weights=None, power_iters: int = 14):
     ``T @ B ~= A``), but the rotation comes from the dominant eigenvector
     of Horn's symmetric 4x4 quaternion matrix, found by a fixed-length
     power iteration.  Everything is elementwise/tiny-matmul work that
-    vmaps cleanly over RANSAC hypothesis batches — on TPU this measures
-    ~10x cheaper than batched ``jnp.linalg.svd`` on (H, 3, 3) problems,
-    and the quaternion parameterization returns a PROPER rotation by
-    construction (no det flip needed).  Near-degenerate samples (e.g.
+    vmaps cleanly over RANSAC hypothesis batches — it avoids a batched
+    ``jnp.linalg.svd`` on (H, 3, 3) problems, and the quaternion
+    parameterization returns a PROPER rotation by construction (no det
+    flip needed).  Near-degenerate samples (e.g.
     collinear triples) converge to an arbitrary rotation in their null
     space; RANSAC scoring rejects those hypotheses.
 

@@ -3,7 +3,7 @@
 Both variants of the reference are provided:
   - ``triangulate_rectified``: the closed-form rectified-stereo inverse
     projection used by the main pipeline (src/viso.cpp:1137-1162 /
-    src/mvg.cpp:172-192) — one fused elementwise op on TPU.
+    src/mvg.cpp:172-192) — one fused elementwise op.
   - ``triangulate_dlt``: per-point 4x4 DLT via batched SVD
     (src/mvg.cpp:124-169) for unrectified camera pairs.
 """

@@ -3,9 +3,11 @@
 Host-side analogs of the reference's ``loadCalib`` (src/kitti.cpp:23-46),
 ``savePoses`` (src/kitti.cpp:49-64) and the lazy ``StereoImageGenerator``
 (src/viso.h:81-101).  PNG decode runs through the native C++ runtime
-(native/viso_native.cpp: libpng + a threaded in-order prefetch executor) so
-decode overlaps device compute; when the native library can't build, a
-PIL + Python-thread fallback provides identical semantics.
+(native/viso_native.cpp: libpng, or its own zlib-only decoder where
+libpng is missing, + a threaded in-order prefetch executor) so decode
+overlaps device compute; when the native library can't build, the
+numpy PNG decoder (io/png.py) on a Python thread provides identical
+semantics for PNG input.
 """
 
 from __future__ import annotations
@@ -72,14 +74,18 @@ _NATIVE_EXTS = (".png", ".jpg", ".jpeg")
 
 
 def _read_gray(path: str) -> np.ndarray:
+    """(H, W) uint8 — uint8 end-to-end: the device casts; f32 would
+    quadruple the transfer."""
     nat = _native()
     if nat is not None and path.lower().endswith(_NATIVE_EXTS):
         return nat.decode_image_gray(path)
-    from PIL import Image
+    if not path.lower().endswith(".png"):
+        raise ValueError(
+            f"{path}: without the native runtime (g++ and zlib, plus "
+            "libjpeg for JPEG input) only PNG input can be decoded")
+    from libviso_tpu.io.png import read_png_gray
 
-    with Image.open(path) as im:
-        # uint8 end-to-end: the device casts; f32 would quadruple transfer
-        return np.asarray(im.convert("L"), dtype=np.uint8)
+    return read_png_gray(path)
 
 
 def kitti_sequence_paths(kitti_home: str, seq: str):
@@ -185,7 +191,7 @@ class MonoImageStream:
     MonoImageGenerator contract: printf mask, frames from ``begin`` until
     ``end`` or the first missing file, src/calib_sfm.cpp:56-64).  Uses
     the native C++ prefetch decoder (PNG/JPEG) when available, the
-    threaded PIL fallback otherwise."""
+    threaded numpy PNG fallback otherwise."""
 
     def __init__(self, mask: str, begin: int = 0,
                  end: Optional[int] = None, prefetch: int = 4):
@@ -222,7 +228,7 @@ class MonoImageStream:
             for p in paths:
                 yield _read_gray(p)
             return
-        # threaded PIL fallback — decode overlaps the consumer exactly as
+        # threaded fallback decode — overlaps the consumer exactly as
         # in StereoImageStream; errors reach the consumer, not the log
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         done = object()

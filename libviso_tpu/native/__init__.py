@@ -1,10 +1,11 @@
 """ctypes binding to the native C++ runtime (native/viso_native.cpp).
 
 The reference's runtime layer is C++ (OpenCV imread in the frame loop,
-src/viso.h:81-101); ours is too: a libpng decoder plus a threaded in-order
+src/viso.h:81-101); ours is too: a PNG decoder (libpng, or the source's
+zlib-only decoder where libpng is missing) plus a threaded in-order
 prefetch executor.  This module compiles the library on first use (cached)
 and exposes a typed API.  Everything degrades gracefully to the pure-Python
-path when g++/libpng are missing — call ``available()`` to check.
+path when g++ or zlib are missing — call ``available()`` to check.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def _load() -> Optional[ctypes.CDLL]:
         try:
             lib = ctypes.CDLL(so)
         except OSError:
-            return None  # corrupt/foreign .so: fall back to the PIL path
+            return None  # corrupt/foreign .so: fall back to io/png.py
         try:
             lib.vn_version.restype = ctypes.c_int
             # version gate FIRST: a stale older-ABI .so (e.g. mtimes

@@ -2,8 +2,9 @@
 
 One g++ invocation, cached by source mtime; no cmake/bazel ceremony for a
 single translation unit.  The .so lands next to this file so the package is
-self-contained.  Failure to build is non-fatal — the Python/PIL path in
-io/kitti.py covers every capability, just slower.
+self-contained.  A host without libpng gets the source's zlib-only PNG
+decoder; failure to build at all is non-fatal — io/kitti.py falls back to
+the numpy PNG decoder (io/png.py), which is slower and reads PNG only.
 """
 
 from __future__ import annotations
@@ -41,14 +42,15 @@ def build(verbose: bool = False) -> str | None:
     # interleave g++ output into one file
     base = ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
             _SRC]
-    # A host with libpng but no libjpeg must not lose the whole native
-    # runtime (PNG decode + prefetch carry the streaming headline) to a
-    # JPEG feature it never uses: retry without -ljpeg, compiling the
-    # JPEG decoder out (VN_NO_JPEG -> those files report
-    # 'unsupported image format' and the PIL fallback covers them).
+    # A host without libjpeg or libpng must not lose the whole native
+    # runtime (PNG decode + prefetch) to a library it lacks: retry with
+    # the JPEG decoder compiled out (VN_NO_JPEG -> those files report
+    # 'unsupported image format'), then with libpng replaced by the
+    # source's zlib-only PNG decoder (VN_NO_LIBPNG).
     attempts = [
         base + ["-lpng", "-ljpeg", "-lz", "-o", tmp],
         base + ["-DVN_NO_JPEG", "-lpng", "-lz", "-o", tmp],
+        base + ["-DVN_NO_LIBPNG", "-DVN_NO_JPEG", "-lz", "-o", tmp],
     ]
     for cmd in attempts:
         try:
@@ -62,8 +64,8 @@ def build(verbose: bool = False) -> str | None:
             os.replace(tmp, _SO)
             return _SO
         if verbose:
-            print(f"native build failed ({' '.join(cmd[-5:-2])}):\n"
-                  f"{proc.stderr}", file=sys.stderr)
+            print(f"native build failed ({' '.join(cmd[len(base):-2])}):"
+                  f"\n{proc.stderr}", file=sys.stderr)
     return None
 
 

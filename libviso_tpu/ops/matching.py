@@ -3,9 +3,10 @@
 The reference's ``match_desc`` (src/viso.cpp:668-726) is a per-keypoint
 FLANN *linear* L1 radius search over keypoint positions followed by a scalar
 scan over neighbors: Sampson epipolar gate, L1 descriptor distance,
-best/2nd-best tracking, optional Lowe ratio test.  That control flow is
-hostile to TPUs; a brute-force masked (N1 x N2) score matrix is not — it is
-a dense, fixed-shape, perfectly tileable computation (SURVEY.md §3.4).
+best/2nd-best tracking, optional Lowe ratio test.  That control flow does
+not batch; a brute-force masked (N1 x N2) score matrix does — it is a
+dense, fixed-shape computation XLA fuses into a few kernels
+(SURVEY.md §3.4).
 
 Semantics preserved: a keypoint in view 1 matches its minimum-L1-descriptor
 neighbor among view-2 keypoints within an L1 *position* radius
@@ -20,9 +21,9 @@ neighbor among view-2 keypoints within an L1 *position* radius
   - exact distance ties keep the first index (the reference keeps the last,
     src/viso.cpp:703).
 
-The descriptor-distance inner loop has an XLA path (chunked, fusion-
-friendly) and a Pallas path (tiled VMEM kernel, see ops/pallas_matching.py)
-selected by ``backend``.
+Distances are plain jax.numpy: L1 as a chunked broadcast-reduce, L2 and
+its int8 variant as matrix products plus norm terms.  Float32 products
+run at ``_L2_PRECISION`` — see ``_l2_desc_dist``.
 """
 
 from __future__ import annotations
@@ -66,14 +67,24 @@ def _l1_desc_dist_xla(d1, d2, row_chunk=128):
     return jax.lax.map(body, blocks).reshape(N1, d2.shape[0])
 
 
+# Precision of the f32 cross term in the L2 identity.  Descriptors are
+# raw Sobel values of magnitude ~1e3, so ||a||^2 + ||b||^2 - 2 a.b
+# cancels terms of ~1e8 down to distances of ~1e5-1e6; a TF32 product
+# (10-bit mantissa, the GPU's DEFAULT for f32) leaves errors of ~1e5
+# there and reorders near-tied candidates.  HIGHEST keeps full f32.
+_L2_PRECISION = jax.lax.Precision.HIGHEST
+
+
 def _l2_desc_dist(d1, d2):
-    """All-pairs (true) L2 distance via the matmul identity (MXU path).
+    """All-pairs (true) L2 distance via the matmul identity.
 
     ||a - b||^2 = ||a||^2 + ||b||^2 - 2 a.b — the (N1, D) x (D, N2)
-    contraction runs on the systolic array instead of the VPU.  Clamped at
-    zero (cancellation can drive tiny distances slightly negative).
+    contraction is one matrix product instead of an (N1, N2, D)
+    broadcast.  Clamped at zero (cancellation can drive tiny distances
+    slightly negative).
     """
-    cross = jnp.dot(d1, d2.T, preferred_element_type=jnp.float32)
+    cross = jnp.dot(d1, d2.T, precision=_L2_PRECISION,
+                    preferred_element_type=jnp.float32)
     n1 = jnp.sum(d1 * d1, axis=-1)
     n2 = jnp.sum(d2 * d2, axis=-1)
     sq = jnp.maximum(n1[:, None] + n2[None, :] - 2.0 * cross, 0.0)
@@ -82,16 +93,15 @@ def _l2_desc_dist(d1, d2):
 
 
 def _l2q8_desc_dist(d1, d2, scale=8.0):
-    """L2 distance over int8-QUANTIZED descriptors (int8 MXU path).
+    """L2 distance over int8-QUANTIZED descriptors (int8 product).
 
     Sobel-patch descriptor values span ~[-1020, 1020] (ksize-3 Sobel of
     uint8 images, features.py); ``round(d/8)`` fits int8 with
     quantization noise ~sqrt(D)*scale/sqrt(12) ~ 25 per distance — two
     orders below typical non-match distances, and the Lowe ratio margin
     of true matches dwarfs it (equivalence tested).  The int8xint8 ->
-    int32 contraction runs in the MXU's high-throughput integer mode
-    (4x the f32-input rate on current TPUs); norms and the unquantized
-    SCALE factor are applied outside the hot contraction.
+    int32 contraction is exact integer arithmetic; norms and the
+    unquantized SCALE factor are applied outside the hot contraction.
     """
     q1 = jnp.clip(jnp.round(d1 / scale), -127, 127).astype(jnp.int8)
     q2 = jnp.clip(jnp.round(d2 / scale), -127, 127).astype(jnp.int8)
@@ -104,7 +114,7 @@ def _l2q8_desc_dist(d1, d2, scale=8.0):
     return scale * jnp.sqrt(sq.astype(d1.dtype))
 
 
-def descriptor_distances(d1, d2, metric="l1", backend="xla"):
+def descriptor_distances(d1, d2, metric="l1"):
     """All-pairs descriptor distance matrix under the configured metric."""
     if metric == "l2":
         return _l2_desc_dist(d1, d2)
@@ -112,14 +122,11 @@ def descriptor_distances(d1, d2, metric="l1", backend="xla"):
         return _l2q8_desc_dist(d1, d2)
     if metric != "l1":
         raise ValueError(f"unknown metric {metric!r}")
-    if backend == "pallas":
-        from libviso_tpu.ops.pallas_matching import l1_distance_matrix
-        return l1_distance_matrix(d1, d2)
     return _l1_desc_dist_xla(d1, d2)
 
 
 def gated_distance_matrix(kp1: Keypoints, d1, kp2: Keypoints, d2,
-                          cfg: MatchConfig, F=None, backend="xla"):
+                          cfg: MatchConfig, F=None):
     """(N1, N2) descriptor-distance matrix with all gates applied (inf out).
 
     The position-radius, validity, and Sampson gates are per-pair, so this
@@ -142,7 +149,7 @@ def gated_distance_matrix(kp1: Keypoints, d1, kp2: Keypoints, d2,
         s = sampson_distance(F, pos1[:, None, :], pos2[None, :, :])
         ok &= jnp.isfinite(s) & (s <= cfg.sampson_thresh)
 
-    dd = descriptor_distances(d1, d2, metric=cfg.metric, backend=backend)
+    dd = descriptor_distances(d1, d2, metric=cfg.metric)
     return jnp.where(ok, dd, big)
 
 
@@ -196,7 +203,7 @@ def _banded_tables_np(nbx, nby, k, band):
 
 def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
                         use_epi, use_rat, ratios, radius, sampson_thresh,
-                        metric, F, backend="xla",
+                        metric, F,
                         layout=None, image_width=None) -> MatchResult:
     """A stack of B gated match problems as one vmapped computation.
 
@@ -218,7 +225,7 @@ def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
     dense path except where two candidates tie to the bit in distance
     (the band scans targets in strip-major order, the dense path in
     slot order; tested equal on real detector output).  'l1' keeps the
-    dense path (its chunked VPU broadcast doesn't profit from the
+    dense path (its chunked broadcast-reduce doesn't profit from the
     narrower band the same way; strict-parity mode favors simplicity).
     """
     F = jnp.asarray(F)
@@ -271,6 +278,7 @@ def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
             else:  # l2
                 cross = jax.lax.dot_general(
                     qd_s, td_b, (((2,), (2,)), ((0,), (0,))),
+                    precision=_L2_PRECISION,
                     preferred_element_type=jnp.float32)
                 n1 = jnp.sum(qd_s * qd_s, axis=-1)
                 n2 = jnp.sum(td_b * td_b, axis=-1)
@@ -306,7 +314,7 @@ def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
         s = sampson_distance(F, qxy[:, None, :], txy[None, :, :])
         epi_ok = jnp.isfinite(s) & (s <= sampson_thresh)
         ok &= jnp.where(epi, epi_ok, True)
-        dd = descriptor_distances(qd, td, metric=metric, backend=backend)
+        dd = descriptor_distances(qd, td, metric=metric)
         dd = jnp.where(ok, dd, big)
         best, second, bidx = two_smallest(dd)
         valid = jnp.isfinite(best) & qv
@@ -322,7 +330,7 @@ def match_problem_batch(q_xy, q_valid, q_d, t_xy, t_valid, t_d,
 def match_frame_triple(kp1: Keypoints, d1, kp2: Keypoints, d2,
                        kp1p: Keypoints, d1p, kp2p: Keypoints, d2p,
                        stereo: MatchConfig, temporal: MatchConfig,
-                       F, backend="xla", layout=None, image_width=None):
+                       F, layout=None, image_width=None):
     """The per-frame match workload as ONE vmapped 3-problem batch.
 
     The reference calls match_desc three times per frame — LR stereo
@@ -348,12 +356,9 @@ def match_frame_triple(kp1: Keypoints, d1, kp2: Keypoints, d2,
             "matrix exists for unknown frame-to-frame motion")
     if (stereo.radius != temporal.radius
             or stereo.metric != temporal.metric):
-        mlr = match_descriptors(kp1, d1, kp2, d2, stereo, F=F,
-                                backend=backend)
-        m11 = match_descriptors(kp1, d1, kp1p, d1p, temporal,
-                                backend=backend)
-        m22 = match_descriptors(kp2, d2, kp2p, d2p, temporal,
-                                backend=backend)
+        mlr = match_descriptors(kp1, d1, kp2, d2, stereo, F=F)
+        m11 = match_descriptors(kp1, d1, kp1p, d1p, temporal)
+        m22 = match_descriptors(kp2, d2, kp2p, d2p, temporal)
         return mlr, m11, m22
 
     res = match_problem_batch(
@@ -369,7 +374,7 @@ def match_frame_triple(kp1: Keypoints, d1, kp2: Keypoints, d2,
         ratios=jnp.asarray([stereo.ratio, temporal.ratio, temporal.ratio],
                            d1.dtype),
         radius=stereo.radius, sampson_thresh=stereo.sampson_thresh,
-        metric=stereo.metric, F=F, backend=backend,
+        metric=stereo.metric, F=F,
         layout=layout, image_width=image_width)
     pick = lambda i: jax.tree_util.tree_map(lambda x: x[i], res)
     return pick(0), pick(1), pick(2)
@@ -377,7 +382,7 @@ def match_frame_triple(kp1: Keypoints, d1, kp2: Keypoints, d2,
 
 def match_descriptors(kp1: Keypoints, d1, kp2: Keypoints, d2,
                       cfg: MatchConfig = MatchConfig(),
-                      F=None, backend="xla") -> MatchResult:
+                      F=None) -> MatchResult:
     """Match view-1 keypoints to view-2 keypoints (one match per slot).
 
     Args:
@@ -387,8 +392,7 @@ def match_descriptors(kp1: Keypoints, d1, kp2: Keypoints, d2,
       F: (3, 3) fundamental matrix with x2' F x1 = 0 for x1 in view 1
         (the pipeline passes points as (p1=kp1, p2=kp2) exactly like the
         reference's sampsonDistance(F, p1, p2) call, src/viso.cpp:698).
-      backend: 'xla' or 'pallas' for the descriptor-distance inner loop.
     """
-    dd = gated_distance_matrix(kp1, d1, kp2, d2, cfg, F=F, backend=backend)
+    dd = gated_distance_matrix(kp1, d1, kp2, d2, cfg, F=F)
     best, second, best_idx = two_smallest(dd)
     return finalize_match(best, second, best_idx, kp1.valid, cfg)

@@ -12,8 +12,8 @@ keyframe already carries metrically-scaled triangulated 3D landmarks
 (stereo gives absolute scale), and *pairwise distances between
 landmarks are invariant under ANY rigid camera motion* — including a
 180 deg heading flip that destroys patch appearance.  The design is
-TPU-native throughout: fixed-shape padded clouds, descriptor cost
-matrices as MXU matmuls, vmapped Procrustes RANSAC for verification.
+batched throughout: fixed-shape padded clouds, descriptor cost
+matrices as matmuls, vmapped Procrustes RANSAC for verification.
 
 Pipeline (mirrors the appearance path in pipeline/loop.py):
 
@@ -24,7 +24,7 @@ Pipeline (mirrors the appearance path in pipeline/loop.py):
   2. store-wide candidate scoring: one batched 2-NN ratio + mutual
      match of the new keyframe's descriptors against every stored
      keyframe — squared-L2 cost via the |a|^2+|b|^2-2ab expansion, so
-     the (K, B, B) cost tensor is ONE batched matmul on the MXU;
+     the (K, B, B) cost tensor is ONE batched matmul;
   3. seed pose from the matches with the existing 3D-3D Procrustes
      RANSAC (geometry/procrustes.py::ransac_rigid_motion — SURVEY.md
      C14, src/estimation.cpp:29-51 / src/viso.cpp:1101-1135);
@@ -64,7 +64,7 @@ def knn_distance_descriptors(X, valid, k: int = 12,
       Padded/invalid rows are all-zero with usable=False.
     """
     usable = valid & (X[:, 2] > 0.0) & (X[:, 2] <= max_depth)
-    # pairwise squared distances via the matmul expansion (MXU-friendly)
+    # pairwise squared distances via the matmul expansion
     n2 = jnp.sum(X * X, axis=-1)
     d2 = n2[:, None] + n2[None, :] - 2.0 * (X @ X.T)
     d2 = jnp.maximum(d2, 0.0)
@@ -89,7 +89,7 @@ def build_structural_matcher(max_kf: int, budget: int, k: int,
     pipeline/loop.py: per stored keyframe, a best-match index per query
     slot, a validity mask (2-NN ratio + mutual check), and a match-count
     score.  Cost is squared L2 over the sorted-distance descriptors —
-    one (K*B, k) x (k, B) matmul feeds the MXU.
+    one (K*B, k) x (k, B) matmul.
     """
 
     def match_all(q_desc, q_valid, kf_desc, kf_valid):

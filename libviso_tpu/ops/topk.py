@@ -1,14 +1,13 @@
 """Small-k exact top-k without the sort (shared hot-path helper).
 
-``lax.top_k`` lowers to a bitonic partial SORT of each row on TPU —
-O(M log^2 M) data movement that dominates when only a handful of winners
-are kept (the detector's per-bin corner budget, RANSAC's Gumbel
+``lax.top_k`` may lower to a partial SORT of each row — O(M log M) or
+worse data movement that dominates when only a handful of winners are
+kept (the detector's per-bin corner budget, RANSAC's Gumbel
 ``model_size`` draws).  For small k, k rounds of (argmax, mask) are
 exact and bit-identical to ``lax.top_k`` — both break ties by LOWEST
 index — while moving ~k linear passes of data that XLA fuses into the
-surrounding pipeline.  Measured on the v5e: the detector's (120, 3825)
-``lax.top_k`` was ~0.3 ms of the 0.78 ms detect stage (round 3,
-benchmarks/stage_profile.py).
+surrounding pipeline (the detector's (120, 3825) bin top-k is the main
+user).  Its speed on the GPU against ``lax.top_k`` is not measured.
 
 Tie/edge semantics (tested, tests/test_features.py):
   - equal values come out in ascending-index order, like ``lax.top_k``;
@@ -24,8 +23,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# measured-crossover cap: the k-pass scheme wins for the small budgets
-# used in-tree (k <= 16); the bitonic sort wins asymptotically
+# cap for the k-pass scheme: it is linear in k, so a sort wins
+# asymptotically; the in-tree budgets are k <= 16
 ITERATIVE_MAX_K = 16
 
 

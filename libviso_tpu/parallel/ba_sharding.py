@@ -4,10 +4,10 @@ The BA window's heavy axis is landmarks: every normal-equation block
 (U, V, W_kj, rhs) is a reduction or map over L.  This module runs
 ``bundle_adjust`` with the landmark axis sharded over the mesh's 'model'
 axis via NamedSharding — XLA turns the L-reductions (U, S, b_p) into
-psum/reduce-scatter over ICI and leaves the per-landmark blocks (V, b_l,
+psum/reduce-scatter across devices and leaves the per-landmark blocks (V, b_l,
 back-substitution) fully local, which is exactly the Schur-complement
 communication pattern hand-written in distributed BA systems
-(SURVEY.md §5.7: "Hessian-block psum/reduce_scatter over ICI").
+(SURVEY.md §5.7: Hessian-block psum/reduce_scatter).
 
 No kernel changes are needed: the solver is already pure batched einsums
 (solvers/bundle_adjust.py), so sharding is a placement decision.  Bit-level

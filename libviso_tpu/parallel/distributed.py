@@ -4,8 +4,8 @@ The reference is single-process (SURVEY.md §2.2); scale-out here follows
 the JAX multi-controller model: every host runs the same program,
 `jax.distributed.initialize` wires the coordination service, and the
 sharded odometry program (parallel/odometry.py) runs under a GLOBAL mesh —
-XLA lowers the cross-chunk pose stitching to ICI/DCN collectives.  No
-NCCL/MPI analog is needed: collectives are compiled, not hand-rolled
+XLA lowers the cross-chunk pose stitching to collectives (NCCL over NVLink
+between the GPUs of a host).  Collectives are compiled, not hand-rolled
 (SURVEY.md §5.8).
 
 Launch contract (each host):
@@ -13,8 +13,10 @@ Launch contract (each host):
     VISO_COORDINATOR=host0:9876 VISO_NUM_PROCESSES=4 VISO_PROCESS_ID=k \
         python -m libviso_tpu.cli kitti ...
 
-plus `initialize_from_env()` early in main.  On Cloud TPU the three vars
-are auto-detected and may be omitted.  Two per-host data plans live here
+plus `initialize_from_env()` early in main.  When several processes share
+one host (one per GPU), give each its card as ``VISO_LOCAL_DEVICE=<index>``:
+a process that opens every local GPU reserves memory on all of them and
+the others then fail for want of it.  Two per-host data plans live here
 and in parallel/odometry.py — use the one matching the program you run:
 
   - frame-level sharding: decode `host_frame_range()`'s span (remainder
@@ -39,6 +41,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 _ENV_COORD = "VISO_COORDINATOR"
 _ENV_NPROC = "VISO_NUM_PROCESSES"
 _ENV_PID = "VISO_PROCESS_ID"
+_ENV_LOCAL = "VISO_LOCAL_DEVICE"
 
 
 def initialize_from_env() -> bool:
@@ -46,17 +49,21 @@ def initialize_from_env() -> bool:
 
     Returns True if multi-process init ran, False for the single-process
     no-op (unset vars or VISO_NUM_PROCESSES=1).  Safe to call twice.
+    ``VISO_LOCAL_DEVICE`` pins the process to that one local device
+    (``local_device_ids``) when several processes share a host.
     """
     nproc = os.environ.get(_ENV_NPROC)
     if nproc is None or int(nproc) <= 1:
         return False
     if getattr(jax.distributed, "is_initialized", lambda: False)():
         return True
+    local = os.environ.get(_ENV_LOCAL)
     jax.distributed.initialize(
         coordinator_address=os.environ.get(_ENV_COORD),
         num_processes=int(nproc),
         process_id=(int(os.environ[_ENV_PID])
                     if _ENV_PID in os.environ else None),
+        local_device_ids=None if local is None else [int(local)],
     )
     return True
 
@@ -108,5 +115,6 @@ def describe() -> dict:
         "process_count": jax.process_count(),
         "global_devices": len(devs),
         "local_devices": len(jax.local_devices()),
+        "platform": devs[0].platform if devs else None,
         "device_kind": devs[0].device_kind if devs else None,
     }

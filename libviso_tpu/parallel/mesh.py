@@ -1,6 +1,6 @@
 """Device mesh construction (SURVEY.md P7).
 
-The reference has no distributed anything (SURVEY.md §2.2); the TPU build
+The reference has no distributed anything (SURVEY.md §2.2); this build
 scales through `jax.sharding.Mesh` + NamedSharding with XLA inserting the
 collectives.  Axis convention:
 

@@ -2,14 +2,15 @@
 
 The reference processes frames strictly serially on one core
 (src/viso.cpp:1205).  The only true sequential dependency is the shared
-previous-frame features — a 1-frame halo.  So the TPU design:
+previous-frame features — a 1-frame halo.  So the design:
 
   1. split the sequence into overlapping chunks (overlap = 1 frame),
   2. shard chunks across the ``data`` mesh axis,
   3. run the jit-compiled per-frame step as a ``lax.scan`` inside each
      chunk (vmapped over the chunk axis),
   4. compose per-frame motions into global poses with one associative scan
-     across the flattened timeline — O(log T) collective depth over ICI.
+     across the flattened timeline — O(log T) collective depth (NCCL over
+     NVLink between GPUs).
 
 Everything from detection to the pose chain is a single jit graph; XLA
 partitions it over the mesh.
@@ -82,8 +83,7 @@ def chunk_frames_with_halo(frames_left, frames_right, n_chunks):
             np.asarray(nvalid, np.int32))
 
 
-def build_chunk_odometry(calib: Calib, F, cfg: PipelineConfig,
-                         backend: str = "xla"):
+def build_chunk_odometry(calib: Calib, F, cfg: PipelineConfig):
     """Per-chunk odometry over a chunk's frames (frame-batched).
 
     Returns chunk_fn(ims1 (L,H,W), ims2 (L,H,W), key) ->
@@ -96,7 +96,7 @@ def build_chunk_odometry(calib: Calib, F, cfg: PipelineConfig,
     """
     from libviso_tpu.pipeline.batched import build_batched_odometry
 
-    batched = build_batched_odometry(calib, F, cfg, backend=backend)
+    batched = build_batched_odometry(calib, F, cfg)
 
     def chunk_fn(ims1, ims2, key):
         out = batched(ims1, ims2, key)
@@ -132,12 +132,12 @@ def stitch_chunk_motions(trs, oks, n_valid):
 
 def run_sharded_odometry(mesh: Mesh, P1, P2, frames_left, frames_right,
                          cfg: PipelineConfig = PipelineConfig(),
-                         seed: int = 0, backend: str = "xla"):
+                         seed: int = 0):
     """Full sharded odometry: chunk, shard over 'data', solve, stitch.
 
     One jit-compiled program: per-chunk scans run data-parallel across the
     mesh; the final pose chain is an associative scan whose cross-chunk
-    products XLA lowers to ICI collectives.
+    products XLA lowers to collectives.
 
     Args:
       mesh: mesh with a 'data' axis.
@@ -153,7 +153,7 @@ def run_sharded_odometry(mesh: Mesh, P1, P2, frames_left, frames_right,
     n_chunks = mesh.shape["data"]
     ims1, ims2, n_valid = chunk_frames_with_halo(frames_left, frames_right,
                                                  n_chunks)
-    chunk_fn = build_chunk_odometry(calib, F, cfg, backend=backend)
+    chunk_fn = build_chunk_odometry(calib, F, cfg)
 
     data_sharding = NamedSharding(mesh, P("data"))
     replicated = NamedSharding(mesh, P())
@@ -212,7 +212,7 @@ def host_chunk_assignment(total_frames: int, n_chunks: int,
 def run_sharded_odometry_multihost(mesh: Mesh, P1, P2, local_left,
                                    local_right, total_frames: int,
                                    cfg: PipelineConfig = PipelineConfig(),
-                                   seed: int = 0, backend: str = "xla"):
+                                   seed: int = 0):
     """Multi-controller sharded odometry (SURVEY.md P1 + P7).
 
     Every process calls this with only ITS frame span (the one
@@ -255,7 +255,7 @@ def run_sharded_odometry_multihost(mesh: Mesh, P1, P2, local_left,
 
     calib = Calib.from_projections(P1, P2)
     F = F_from_P_host(P1, P2)
-    chunk_fn = build_chunk_odometry(calib, F, cfg, backend=backend)
+    chunk_fn = build_chunk_odometry(calib, F, cfg)
 
     data_sharding = NamedSharding(mesh, P("data"))
     replicated = NamedSharding(mesh, P())

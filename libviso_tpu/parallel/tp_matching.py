@@ -2,8 +2,8 @@
 
 The match-cost matrix is the reference's throughput kernel (3 calls/frame,
 O(N1*N2) each — src/viso.cpp:1240,1264,1275).  For large keypoint budgets
-(mono uses 1500 x 361-dim descriptors; dense variants go higher) one chip's
-VMEM and FLOPs bound the frame rate, so the matrix is sharded column-wise
+(mono uses 1500 x 361-dim descriptors; dense variants go higher) one device's
+memory and FLOPs bound the frame rate, so the matrix is sharded column-wise
 over the mesh's 'model' axis:
 
   view-1 keypoints/descriptors  : replicated
@@ -11,7 +11,7 @@ over the mesh's 'model' axis:
   (N1, N2/k) gated distances    : computed locally per device
   row-wise (best, 2nd, argmin)  : local reduce, then an all_gather of the
                                   k per-shard triples and a closed-form
-                                  2-min merge — O(k*N1) on ICI instead of
+                                  2-min merge — O(k*N1) exchanged instead of
                                   O(N1*N2) — then the ratio test.
 
 The merge preserves EXACT unsharded argmin tie-breaking (lowest global
@@ -63,7 +63,7 @@ def merge_shard_minima(bests, seconds, idxs):
 
 
 def build_tp_matcher(mesh: Mesh, cfg: MatchConfig = MatchConfig(),
-                     use_F: bool = False, backend: str = "xla",
+                     use_F: bool = False,
                      axis: str = "model"):
     """Build a jittable tensor-parallel match function over `mesh`.
 
@@ -85,8 +85,7 @@ def build_tp_matcher(mesh: Mesh, cfg: MatchConfig = MatchConfig(),
     def match(kp1, d1, kp2_loc, d2_loc, *maybe_F):
         F = maybe_F[0] if use_F else None
         n2_loc = d2_loc.shape[0]
-        dd = gated_distance_matrix(kp1, d1, kp2_loc, d2_loc, cfg, F=F,
-                                   backend=backend)
+        dd = gated_distance_matrix(kp1, d1, kp2_loc, d2_loc, cfg, F=F)
         best, second, idx_loc = two_smallest(dd)
         offset = lax.axis_index(axis).astype(jnp.int32) * n2_loc
         idx_glob = idx_loc + offset
@@ -102,10 +101,9 @@ def build_tp_matcher(mesh: Mesh, cfg: MatchConfig = MatchConfig(),
 
 def tp_match_descriptors(mesh: Mesh, kp1: Keypoints, d1, kp2: Keypoints,
                          d2, cfg: MatchConfig = MatchConfig(), F=None,
-                         backend: str = "xla",
                          axis: str = "model") -> MatchResult:
     """One-shot convenience wrapper around build_tp_matcher."""
-    fn = build_tp_matcher(mesh, cfg, use_F=F is not None, backend=backend,
+    fn = build_tp_matcher(mesh, cfg, use_F=F is not None,
                           axis=axis)
     args = (kp1, d1, kp2, d2) + ((jnp.asarray(F),) if F is not None else ())
     return fn(*args)

@@ -61,7 +61,7 @@ class TrackData(NamedTuple):
 
 
 def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,
-                           backend: str = "xla", with_tracks: bool = False):
+                           with_tracks: bool = False):
     """Build fn(ims1 (T,H,W), ims2 (T,H,W), key) -> BatchedOutput (jittable).
 
     ``with_tracks=True`` additionally returns a TrackData for windowed BA.
@@ -105,7 +105,7 @@ def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,
             ratios=jnp.full((T,), stereo_cfg.ratio, fdt),
             radius=stereo_cfg.radius,
             sampson_thresh=stereo_cfg.sampson_thresh,
-            metric=stereo_cfg.metric, F=F, backend=backend,
+            metric=stereo_cfg.metric, F=F,
             layout=layout, image_width=ims1.shape[-1])
 
         Tm = 2 * (T - 1)
@@ -121,7 +121,7 @@ def build_batched_odometry(calib: Calib, F, cfg: PipelineConfig,
             ratios=jnp.full((Tm,), temporal_cfg.ratio, fdt),
             radius=temporal_cfg.radius,
             sampson_thresh=temporal_cfg.sampson_thresh,
-            metric=temporal_cfg.metric, F=F, backend=backend,
+            metric=temporal_cfg.metric, F=F,
             layout=layout, image_width=ims1.shape[-1])
         part = lambda tree, a, b: jax.tree_util.tree_map(
             lambda x: x[a:b], tree)

@@ -130,14 +130,13 @@ def _pair_parallax(R, x1, x2):
     scale evidence is gated on it."""
     h1 = e2h(x1)
     h2 = e2h(x2)
-    r1 = jnp.einsum("ij,nj->ni", R, h1)
+    r1 = jnp.einsum("ij,nj->ni", R, h1, precision="highest")
     r1 = r1 / jnp.linalg.norm(r1, axis=-1, keepdims=True)
     r2 = h2 / jnp.linalg.norm(h2, axis=-1, keepdims=True)
     return jnp.linalg.norm(jnp.cross(r2, r1), axis=-1)
 
 
-def build_mono_step(K, cfg: PipelineConfig, mono: MonoConfig = None,
-                    backend: str = "xla", D=None,
+def build_mono_step(K, cfg: PipelineConfig, mono: MonoConfig = None, D=None,
                     # legacy kwargs (pre-MonoConfig callers)
                     num_hypotheses=None, sampson_thresh=None, method=None):
     """Jittable mono frame step.
@@ -176,7 +175,7 @@ def build_mono_step(K, cfg: PipelineConfig, mono: MonoConfig = None,
     def step(state: MonoState, im, key):
         kp, d = detect_and_describe(im, cfg.detector)
         m = match_descriptors(kp, d, state.kp, state.desc,
-                              cfg.temporal_match, backend=backend)
+                              cfg.temporal_match)
 
         n_slots = cfg.detector.num_slots
         idx_safe = jnp.clip(m.idx, 0, n_slots - 1)
@@ -203,14 +202,15 @@ def build_mono_step(K, cfg: PipelineConfig, mono: MonoConfig = None,
                                 soft_refit=mono.soft_refit)
 
         # epipolar re-match under the induced fundamental matrix
-        F = jnp.asarray(Kinv.T, jnp.float32) @ est1.E @ jnp.asarray(
-            Kinv, jnp.float32)
+        F = jnp.matmul(jnp.matmul(jnp.asarray(Kinv.T, jnp.float32), est1.E,
+                                  precision="highest"),
+                       jnp.asarray(Kinv, jnp.float32), precision="highest")
         rematch_cfg = dataclasses.replace(
             cfg.stereo_match, radius=cfg.temporal_match.radius,
             use_epipolar=True, use_ratio=True, ratio=mono.rematch_ratio,
             metric=cfg.temporal_match.metric)
         m2 = match_descriptors(kp, d, state.kp, state.desc, rematch_cfg,
-                               F=F, backend=backend)
+                               F=F)
         idx2_safe = jnp.clip(m2.idx, 0, n_slots - 1)
         xn_cur2 = _norm(kp.xy)
         xn_prev2 = _norm(state.kp.xy[idx2_safe])
@@ -389,7 +389,7 @@ def build_mono_step(K, cfg: PipelineConfig, mono: MonoConfig = None,
 
 
 def build_mono_chunk(K, cfg: PipelineConfig, chunk: int,
-                     mono: MonoConfig = None, backend: str = "xla",
+                     mono: MonoConfig = None,
                      method: str = None):
     """``chunk`` consecutive mono steps as ONE dispatch (`lax.scan` of
     the per-frame step) — the mono analog of
@@ -403,7 +403,7 @@ def build_mono_chunk(K, cfg: PipelineConfig, chunk: int,
     (chunk,)-stacked PRNG key array.
     """
     kw = {} if method is None else {"method": method}
-    step = build_mono_step(K, cfg, mono=mono, backend=backend, **kw)
+    step = build_mono_step(K, cfg, mono=mono, **kw)
 
     def chunk_step(state: MonoState, ims, keys):
         def body(st, xs):
@@ -427,16 +427,16 @@ class MonoResult:
 
 
 @functools.lru_cache(maxsize=8)
-def _jitted_mono_step(k_bytes: bytes, cfg, mono, backend: str, D):
+def _jitted_mono_step(k_bytes: bytes, cfg, mono, D):
     """One jitted mono step per configuration (repeat calls skip the
     recompile; see stereo.py::_jitted_step)."""
     K = np.frombuffer(k_bytes, np.float64).reshape(3, 3)
-    return jax.jit(build_mono_step(K, cfg, mono=mono, backend=backend,
+    return jax.jit(build_mono_step(K, cfg, mono=mono,
                                    D=D))
 
 def run_mono_sequence(frames: Iterable, K,
                       cfg: PipelineConfig = None,
-                      seed: int = 0, backend: str = "xla",
+                      seed: int = 0,
                       mono: MonoConfig = None,
                       method: str = None, D=None) -> MonoResult:
     """Host driver for the monocular pipeline (calib_sfm.cpp analog).
@@ -454,7 +454,7 @@ def run_mono_sequence(frames: Iterable, K,
     if method is not None:
         mono = dataclasses.replace(mono, method=method)
     step = _jitted_mono_step(
-        np.ascontiguousarray(K, np.float64).tobytes(), cfg, mono, backend,
+        np.ascontiguousarray(K, np.float64).tobytes(), cfg, mono,
         None if D is None else tuple(float(d) for d in D))
     key = jax.random.PRNGKey(seed)
 

@@ -139,7 +139,7 @@ def _build_sim3_verifier(K, budget: int, num_hypotheses: int,
 def run_mono_sim3_loop(frames: Iterable, K,
                        cfg: PipelineConfig = None,
                        mono: MonoConfig = None,
-                       seed: int = 0, backend: str = "xla",
+                       seed: int = 0,
                        keyframe_every: int = 4,
                        min_gap: int = 10,
                        min_matches: int = 20,
@@ -187,7 +187,7 @@ def run_mono_sim3_loop(frames: Iterable, K,
         cfg = PipelineConfig.mono()
     mono = mono or MonoConfig()
     step = _jitted_mono_step(
-        np.ascontiguousarray(K, np.float64).tobytes(), cfg, mono, backend,
+        np.ascontiguousarray(K, np.float64).tobytes(), cfg, mono,
         None if D is None else tuple(float(d) for d in D))
     key = jax.random.PRNGKey(seed)
 
@@ -236,7 +236,7 @@ def run_mono_sim3_loop(frames: Iterable, K,
 
     # --- appearance candidates: the stereo loop engine's batched
     # matcher over the whole store (one launch per query keyframe) ---
-    match_all = _build_candidate_matcher(cfg, Kf, budget, backend,
+    match_all = _build_candidate_matcher(cfg, Kf, budget,
                                          candidate_ratio)
     st_xy = jnp.asarray(np.stack(kf_xy))
     st_desc = jnp.asarray(np.stack(kf_desc))

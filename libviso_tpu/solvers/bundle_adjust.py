@@ -1,7 +1,7 @@
 """Sliding-window stereo bundle adjustment with Schur-complement reduction.
 
 A capability the reference does not have (each pose uses only frame k-1 -> k,
-SURVEY.md §5.7); BASELINE configs 4/5 require it.  Design is TPU-first:
+SURVEY.md §5.7); BASELINE configs 4/5 require it.  Design is batch-first:
 
   - The window is a fixed-shape problem: W camera poses (6-dof each),
     L landmarks (3-dof each), a dense (W, L) visibility mask, and stereo
@@ -17,7 +17,7 @@ SURVEY.md §5.7); BASELINE configs 4/5 require it.  Design is TPU-first:
   - Gauge freedom: pose 0 is frozen (its update rows/cols are masked).
   - Everything is jnp: the landmark axis L is the large one, and every
     reduction over it (U, S, rhs) is an einsum XLA can shard over a mesh
-    axis — psum/reduce-scatter over ICI come from NamedSharding on the
+    axis — psum/reduce-scatter across devices come from NamedSharding on the
     (W, L, ...) tensors, no hand-written collectives (SURVEY.md P5/P7).
 
 Parameterization matches the rest of the engine: pose k is the 6-vector

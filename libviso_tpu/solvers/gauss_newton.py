@@ -4,7 +4,7 @@ The accuracy kernel of the engine (SURVEY.md C12; reference
 ``minimize_reproj`` src/viso.cpp:1582-1623 and ``compute_J``
 src/viso.cpp:1401-1497).
 
-TPU-native design notes (vs. the reference):
+Batched design notes (vs. the reference):
   - The per-point scalar loops become batched tensor expressions over an
     ``(N,)`` point axis; an extra leading axis vmaps over RANSAC hypotheses.
   - Ragged "active" index subsets become a per-point weight vector: weight 0

@@ -17,10 +17,10 @@ gimbal lock no matter what absolute headings the trajectory visits (a
 closed loop necessarily passes +-90 deg, where an absolute-Euler
 parameterization degenerates).
 
-TPU-first shape: all edges evaluate as one batched gather + matmul, the
+Batched shape: all edges evaluate as one batched gather + matmul, the
 Jacobian of the full residual vector comes from ``jax.jacfwd`` (exact,
 no hand-derived adjoints), and the normal equations solve densely with
-Levenberg-Marquardt scaling — a (6T, 6T) Cholesky is trivial MXU work at
+Levenberg-Marquardt scaling — a (6T, 6T) Cholesky is trivial work at
 the ≤ few-hundred-NODE graphs pipeline/loop.py builds (it optimizes over
 keyframe nodes, not raw frames, and re-anchors the in-between frames
 afterwards).  Gauge freedom is fixed by freezing node 0's delta at zero.

@@ -19,7 +19,7 @@ parameterization around the initial poses (every delta stays near the
 identity, so the Euler-XYZ + log-scale coordinates are well-conditioned
 regardless of absolute heading), one batched gather + matmul for all
 edge residuals, exact ``jax.jacfwd`` Jacobian, LM-damped dense Cholesky
-on (7K, 7K) — trivial MXU work at keyframe-graph sizes — and
+on (7K, 7K) — trivial work at keyframe-graph sizes — and
 Cauchy-IRLS attenuation of masked (loop) edges so one aliased revisit
 cannot poison the solve.  Beyond-reference: the reference's mono path
 has no pose chain at all (src/viso.cpp:1393-1396).

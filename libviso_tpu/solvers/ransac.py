@@ -80,8 +80,8 @@ def ransac_pose(key, X, observe, valid, calib: Calib,
         # --- fit: closed-form 3D-3D Kabsch alignment (the reference's
         # alternative estimator, estimation.cpp:29-51) between previous
         # points and the triangulated CURRENT points — Horn's quaternion
-        # solve (squaring power iteration, no SVD: batched tiny-matrix
-        # jnp.linalg.svd costs ~0.7 ms on TPU) instead of the fit
+        # solve (squaring power iteration, no batched tiny-matrix
+        # jnp.linalg.svd) instead of the fit
         # while_loop; degenerate (collinear) samples yield poor models
         # that the inlier scoring rejects.
         from libviso_tpu.geometry.procrustes import solve_rigid_motion_horn

@@ -30,15 +30,14 @@ from typing import List, Optional
 import numpy as np
 
 
-def config_fingerprint(cfg, seed: int, backend: str,
-                       scope: str = "") -> str:
+def config_fingerprint(cfg, seed: int, scope: str = "") -> str:
     """Stable hash of everything that must match for a resume to be valid.
 
     ``scope`` identifies the input slice (e.g. the KITTI begin/end frame
     range): resuming with a shifted range would silently stitch motions
     across misaligned frames, so it must invalidate the checkpoint.
     """
-    text = f"{cfg!r}|seed={seed}|backend={backend}|scope={scope}"
+    text = f"{cfg!r}|seed={seed}|scope={scope}"
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 

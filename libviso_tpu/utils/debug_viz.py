@@ -17,8 +17,20 @@ from typing import Optional
 import numpy as np
 
 
+def _pil():
+    """(PIL.Image, PIL.ImageDraw); the debug artifacts (--save-debug,
+    eval --plot) are the only users of Pillow in the package."""
+    try:
+        from PIL import Image, ImageDraw
+    except ImportError as e:
+        raise ImportError(
+            "debug images and trajectory plots (--save-debug, --plot) "
+            "need Pillow, which is not installed") from e
+    return Image, ImageDraw
+
+
 def _to_rgb(img) -> "Image.Image":
-    from PIL import Image
+    Image, _ = _pil()
 
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
@@ -35,7 +47,7 @@ def _valid_xy(kp_xy, valid):
 
 def save_corners(img, kp_xy, path, valid=None, color=(255, 0, 0), r=2):
     """Corner dots on the image (save1 analog)."""
-    from PIL import ImageDraw
+    _, ImageDraw = _pil()
 
     im = _to_rgb(img)
     draw = ImageDraw.Draw(im)
@@ -48,7 +60,7 @@ def save_corners(img, kp_xy, path, valid=None, color=(255, 0, 0), r=2):
 def save_match_blend(img1, img2, kp1_xy, kp2_xy, match_idx, path,
                      valid=None, limit=None):
     """Blend both images 50/50 and draw match segments (save2blend analog)."""
-    from PIL import Image, ImageDraw
+    Image, ImageDraw = _pil()
 
     a = _to_rgb(img1)
     b = _to_rgb(img2)
@@ -75,7 +87,7 @@ def save_match_blend(img1, img2, kp1_xy, kp2_xy, match_idx, path,
 def save_stacked_matches(img1, img2, kp1_xy, kp2_xy, match_idx, path,
                          limit=50):
     """Vertically stacked pair with cross-image match lines (save2 analog)."""
-    from PIL import Image, ImageDraw
+    Image, ImageDraw = _pil()
 
     a = _to_rgb(img1)
     b = _to_rgb(img2)
@@ -101,7 +113,7 @@ def save_epipolar(img2, F, points1, path, color=(255, 255, 255)):
 
     Line of x1 in image 2: l = F x1 (with x2' F x1 = 0).
     """
-    from PIL import ImageDraw
+    _, ImageDraw = _pil()
 
     im = _to_rgb(img2)
     draw = ImageDraw.Draw(im)
@@ -123,7 +135,7 @@ def save_circle_quad(im1, im1_prev, im2, im2_prev,
                      circle, path, limit=None):
     """2x2 panel (cur/prev x left/right) with circular-match quads
     (save4 analog).  ``circle`` is a CircleResult."""
-    from PIL import Image, ImageDraw
+    Image, ImageDraw = _pil()
 
     tl, bl = _to_rgb(im1), _to_rgb(im1_prev)
     tr, br = _to_rgb(im2), _to_rgb(im2_prev)
@@ -160,7 +172,7 @@ def save_circle_quad(im1, im1_prev, im2, im2_prev,
 
 def save_reprojection(img, observed_xy, reprojected_xy, path, valid=None):
     """Observed (red) vs reprojected (green) points (save1reproj analog)."""
-    from PIL import ImageDraw
+    _, ImageDraw = _pil()
 
     im = _to_rgb(img)
     draw = ImageDraw.Draw(im)
@@ -176,7 +188,7 @@ def save_reprojection(img, observed_xy, reprojected_xy, path, valid=None):
 
 def save_histogram(values, path, bins=300, size=(1024, 800)):
     """Value histogram rendered as a line plot (myhist analog)."""
-    from PIL import Image, ImageDraw
+    Image, ImageDraw = _pil()
 
     vals = np.asarray(values).reshape(-1)
     hist, _ = np.histogram(vals, bins=bins)
@@ -232,7 +244,7 @@ def save_trajectory(path, poses_est, poses_gt=None, size=(900, 900),
     """Top-down (x-z plane) trajectory plot: estimate in red, optional
     ground truth in white.  The standard KITTI-style sanity artifact the
     reference never produced."""
-    from PIL import Image, ImageDraw
+    Image, ImageDraw = _pil()
 
     est = np.asarray(poses_est)[:, [0, 2], 3]
     tracks = [("est", est, (255, 64, 64))]

@@ -1,9 +1,9 @@
-// TPU-native runtime: host-side image decode + prefetch executor.
+// Native runtime: host-side image decode + prefetch executor.
 //
 // The reference does all image I/O through OpenCV's synchronous imread inside
 // the frame loop (StereoImageGenerator, src/viso.h:81-101) — decode time sits
 // on the critical path.  Here the runtime half of the framework is native
-// C++ like the reference's, but redesigned for a TPU host: a pool of decode
+// C++ like the reference's, but redesigned for an accelerator host: a pool of decode
 // threads runs ahead of the consumer and delivers frames IN ORDER through a
 // bounded ring of slots, so PNG inflate/unfilter overlaps device compute and
 // the Python layer only memcpy's into the staging buffer it hands to jax.
@@ -21,14 +21,20 @@
 //   vn_version           ABI version stamp
 //
 // Build: g++ -O3 -fPIC -shared -pthread viso_native.cpp -lpng -ljpeg -lz
-//        (see libviso_tpu/native/build.py)
+//        (see libviso_tpu/native/build.py).  Hosts without libpng build
+//        with -DVN_NO_LIBPNG -DVN_NO_JPEG -lz: PNGs then decode through
+//        the zlib-only decoder below.
 
 #include <cstdio>   // jpeglib.h needs FILE declared before inclusion
 
 #ifndef VN_NO_JPEG
 #include <jpeglib.h>
 #endif
+#ifdef VN_NO_LIBPNG
+#include <zlib.h>
+#else
 #include <png.h>
+#endif
 
 #include <csetjmp>
 
@@ -58,6 +64,9 @@ enum VnError {
   VN_ERR_BAD_HANDLE = -5,
 };
 
+constexpr uint8_t kPngSignature[8] = {0x89, 'P', 'N', 'G', '\r', '\n',
+                                      0x1a, '\n'};
+
 struct GrayImage {
   int height = 0;
   int width = 0;
@@ -65,6 +74,125 @@ struct GrayImage {
   int status = VN_OK;
 };
 
+#ifdef VN_NO_LIBPNG
+// Decode one PNG file to tightly-packed 8-bit grayscale rows without
+// libpng: zlib inflate plus the five scanline filters.  Covers 8- and
+// 16-bit gray, gray+alpha, RGB and RGBA, non-interlaced; 16-bit keeps the
+// high byte, alpha is dropped, and RGB -> luma uses PIL's convert("L")
+// fixed point, as libviso_tpu/io/png.py does.  Palette, sub-byte depths
+// and interlaced files report VN_ERR_BAD_FORMAT.
+uint32_t be32(const uint8_t* p) {
+  return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
+         (uint32_t(p[2]) << 8) | uint32_t(p[3]);
+}
+
+int paeth(int a, int b, int c) {
+  const int p = a + b - c;
+  const int pa = p > a ? p - a : a - p;
+  const int pb = p > b ? p - b : b - p;
+  const int pc = p > c ? p - c : c - p;
+  return (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+}
+
+int decode_png_gray(const char* path, GrayImage* out) {
+  std::FILE* fp = std::fopen(path, "rb");
+  if (!fp) return VN_ERR_OPEN;
+  std::vector<uint8_t> file;
+  uint8_t block[1 << 16];
+  size_t got;
+  while ((got = std::fread(block, 1, sizeof(block), fp)) > 0)
+    file.insert(file.end(), block, block + got);
+  std::fclose(fp);
+  if (file.size() < 8 || std::memcmp(file.data(), kPngSignature, 8) != 0)
+    return VN_ERR_BAD_FORMAT;
+
+  uint32_t width = 0, height = 0;
+  int depth = 0, color = -1, interlace = 0;
+  std::vector<uint8_t> idat;
+  size_t pos = 8;
+  while (pos + 12 <= file.size()) {
+    const uint32_t len = be32(&file[pos]);
+    if (len > file.size() - pos - 12) return VN_ERR_DECODE;
+    const uint8_t* type = &file[pos + 4];
+    const uint8_t* data = &file[pos + 8];
+    const uint32_t crc = be32(data + len);
+    if (crc32(crc32(0L, type, 4), data, len) != crc) return VN_ERR_DECODE;
+    if (std::memcmp(type, "IHDR", 4) == 0 && len == 13) {
+      width = be32(data);
+      height = be32(data + 4);
+      depth = data[8];
+      color = data[9];
+      interlace = data[12];
+    } else if (std::memcmp(type, "IDAT", 4) == 0) {
+      idat.insert(idat.end(), data, data + len);
+    } else if (std::memcmp(type, "IEND", 4) == 0) {
+      break;
+    }
+    pos += 12 + static_cast<size_t>(len);
+  }
+  int channels = 0;
+  switch (color) {
+    case 0: channels = 1; break;
+    case 2: channels = 3; break;
+    case 4: channels = 2; break;
+    case 6: channels = 4; break;
+    default: return VN_ERR_BAD_FORMAT;
+  }
+  if ((depth != 8 && depth != 16) || interlace != 0) return VN_ERR_BAD_FORMAT;
+  if (width == 0 || height == 0 || idat.empty()) return VN_ERR_DECODE;
+
+  const size_t bpp = static_cast<size_t>(channels) * depth / 8;
+  const size_t stride = bpp * width;
+  std::vector<uint8_t> raw(height * (stride + 1));
+  uLongf raw_len = raw.size();
+  if (uncompress(raw.data(), &raw_len, idat.data(), idat.size()) != Z_OK ||
+      raw_len != raw.size())
+    return VN_ERR_DECODE;
+
+  std::vector<uint8_t> zero(stride, 0);
+  for (uint32_t y = 0; y < height; ++y) {
+    uint8_t* row = &raw[y * (stride + 1)];
+    const int filter = row[0];
+    uint8_t* cur = row + 1;
+    const uint8_t* up = y ? &raw[(y - 1) * (stride + 1) + 1] : zero.data();
+    for (size_t i = 0; i < stride; ++i) {
+      const int a = i >= bpp ? cur[i - bpp] : 0;
+      const int b = up[i];
+      const int c = i >= bpp ? up[i - bpp] : 0;
+      int pred;
+      switch (filter) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: pred = paeth(a, b, c); break;
+        default: return VN_ERR_DECODE;
+      }
+      cur[i] = static_cast<uint8_t>(cur[i] + pred);
+    }
+  }
+
+  out->height = static_cast<int>(height);
+  out->width = static_cast<int>(width);
+  out->pixels.resize(static_cast<size_t>(height) * width);
+  const size_t sample = depth / 8;  // 16-bit: the high byte comes first
+  for (uint32_t y = 0; y < height; ++y) {
+    const uint8_t* px = &raw[y * (stride + 1) + 1];
+    uint8_t* dst = &out->pixels[static_cast<size_t>(y) * width];
+    for (uint32_t x = 0; x < width; ++x, px += bpp) {
+      if (channels <= 2) {
+        dst[x] = px[0];
+      } else {
+        const uint32_t r = px[0], g = px[sample], b = px[2 * sample];
+        dst[x] = static_cast<uint8_t>(
+            (r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16);
+      }
+    }
+  }
+  return VN_OK;
+}
+
+#else
 // Decode one PNG file to tightly-packed 8-bit grayscale rows.
 // Any input depth/color layout is normalized: palette -> RGB, 16 -> 8 bit,
 // <8-bit gray expanded, alpha stripped, RGB -> luma with ITU-R 601
@@ -133,7 +261,7 @@ int decode_png_gray(const char* path, GrayImage* out) {
   std::fclose(fp);
   return VN_OK;
 }
-
+#endif  // VN_NO_LIBPNG
 
 // Decode one JPEG file to tightly-packed 8-bit grayscale rows via libjpeg's
 // native JCS_GRAYSCALE output (IJG luma for color inputs — the same ITU-R
@@ -336,7 +464,8 @@ int vn_png_dims(const char* path, int* h, int* w) {
   if (!fp) return VN_ERR_OPEN;
   // 8-byte signature + IHDR chunk: length(4) type(4) width(4) height(4)
   uint8_t buf[24];
-  if (std::fread(buf, 1, 24, fp) != 24 || png_sig_cmp(buf, 0, 8) ||
+  if (std::fread(buf, 1, 24, fp) != 24 ||
+      std::memcmp(buf, kPngSignature, 8) != 0 ||
       std::memcmp(buf + 12, "IHDR", 4) != 0) {
     std::fclose(fp);
     return VN_ERR_BAD_FORMAT;

@@ -108,11 +108,11 @@ def test_completed_run_reruns_as_noop(tmp_path, tiny_cfg, seq):
 
 
 def test_fingerprint_sensitivity(tiny_cfg):
-    f0 = config_fingerprint(tiny_cfg, 0, "xla")
-    assert f0 == config_fingerprint(tiny_cfg, 0, "xla")
-    assert f0 != config_fingerprint(tiny_cfg, 1, "xla")
-    assert f0 != config_fingerprint(tiny_cfg, 0, "pallas")
-    assert f0 != config_fingerprint(PipelineConfig(), 0, "xla")
+    f0 = config_fingerprint(tiny_cfg, 0)
+    assert f0 == config_fingerprint(tiny_cfg, 0)
+    assert f0 != config_fingerprint(tiny_cfg, 1)
+    assert f0 != config_fingerprint(tiny_cfg, 0, scope="00:0:None")
+    assert f0 != config_fingerprint(PipelineConfig(), 0)
 
 
 def test_resume_bit_exact_while_recovery_state_held(tmp_path, tiny_cfg,

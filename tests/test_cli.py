@@ -221,6 +221,23 @@ def test_synth_world_flag_selects_world_generator(monkeypatch, capsys):
     assert calls == [("world", 3), ("plaza", 4)]
 
 
+def test_run_summary_names_the_device(monkeypatch, capsys):
+    """Every driver summary carries platform + device_kind, so a run that
+    fell back to the CPU cannot pass for an accelerator run."""
+    import libviso_tpu.pipeline as pl
+
+    class _Res:
+        def __init__(self, T):
+            self.poses = np.tile(np.eye(4), (T, 1, 1))
+            self.frame_ok = np.ones(T, bool)
+
+    monkeypatch.setattr(pl, "run_stereo_sequence",
+                        lambda frames, *a, **kw: _Res(len(frames)))
+    cli.main(["synth", "--frames", "3"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["platform"] == "cpu" and out["device_kind"]
+
+
 def test_serve_rejects_chunk(tmp_path, monkeypatch):
     """serve dispatches per lockstep timestep; --chunk is rejected
     explicitly rather than silently ignored."""

@@ -77,3 +77,27 @@ def test_describe_keys():
     d = describe()
     assert d["process_count"] == 1
     assert d["local_devices"] == 8
+
+
+def test_initialize_from_env_pins_one_local_device(monkeypatch):
+    """Several processes on one host: each opens only its own card."""
+    import jax
+
+    from libviso_tpu.parallel import distributed
+
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    monkeypatch.setattr(jax.distributed, "is_initialized", lambda: False,
+                        raising=False)
+    monkeypatch.setenv("VISO_NUM_PROCESSES", "4")
+    monkeypatch.setenv("VISO_COORDINATOR", "localhost:9876")
+    for pid in range(4):
+        monkeypatch.setenv("VISO_PROCESS_ID", str(pid))
+        monkeypatch.setenv("VISO_LOCAL_DEVICE", str(pid))
+        assert distributed.initialize_from_env()
+    assert [c["local_device_ids"] for c in calls] == [[0], [1], [2], [3]]
+    assert [c["process_id"] for c in calls] == [0, 1, 2, 3]
+    monkeypatch.delenv("VISO_LOCAL_DEVICE")
+    distributed.initialize_from_env()
+    assert calls[-1]["local_device_ids"] is None

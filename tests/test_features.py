@@ -153,7 +153,7 @@ def test_descriptor_border_keypoint(rng):
 
 
 def test_descriptor_gather_onehot_bitexact():
-    """The MXU one-hot patch gather must be bitwise identical to the flat
+    """The one-hot patch gather must be bitwise identical to the flat
     XLA gather (each output has exactly one nonzero contribution; bf16x3
     passes reconstruct f32 exactly)."""
     import dataclasses
@@ -306,7 +306,7 @@ def test_detect_binned_iterative_topk_default_path(rng):
 
 
 def test_descriptor_gather_onehot_i8_bitexact():
-    """The int8-MXU patch gather must be bitwise identical to the flat
+    """The int8 patch gather must be bitwise identical to the flat
     gather for integer-valued images (ksize-3 Sobel of [0,255] integers
     lies in [-1020,1020]; the 16*hi+lo int8 split reconstructs it
     exactly in int32), and detect_and_describe must produce identical

@@ -1,18 +1,18 @@
-"""Trajectory-equivalence battery: MXU ``l2`` matcher vs reference ``l1``.
+"""Trajectory-equivalence battery: matmul ``l2`` matcher vs reference ``l1``.
 
-VERDICT r1 next #1: the ``l2`` descriptor metric rides the MXU (matmul
-identity) at ~1.5x the frame rate of the reference-parity VPU ``l1`` path
-(docs/performance.md), but round 1 shipped it off-by-default with one
-loose 2.5x ATE bound.  This battery is the evidence gate for flipping the
-default: >=12 sequences spanning seeds, sensor-noise levels, landmark
-densities, low-texture and repetitive-texture regimes, and exposure
-drift.  Every sequence must stay within 2x / 4 cm of its l1 twin (the
-single-sequence ATE ratio is itself noisy: measured spread across seeds
-is 0.4x-2.1x with both signs, so a tighter per-sequence bound would
-flake on seed noise rather than detect metric differences), and the
-BATTERY-WIDE aggregates carry the tight equivalence claim: median and
-geometric-mean ATE ratio within 15% of 1, l2 winning a nontrivial share
-outright, and every frame of every regime solving under both metrics.
+The ``l2`` descriptor metric is one matrix product per problem (matmul
+identity) where the reference-parity ``l1`` path is a broadcast-reduce,
+but round 1 shipped it off-by-default with one loose 2.5x ATE bound.
+This battery is the evidence gate for flipping the default: >=12
+sequences spanning seeds, sensor-noise levels, landmark densities, low-
+texture and repetitive-texture regimes, and exposure drift. Every
+sequence must stay within 2x / 4 cm of its l1 twin (the single-sequence
+ATE ratio is itself noisy: measured spread across seeds is 0.4x-2.1x
+with both signs, so a tighter per-sequence bound would flake on seed
+noise rather than detect metric differences), and the BATTERY-WIDE
+aggregates carry the tight equivalence claim: median and geometric-mean
+ATE ratio within 15% of 1, l2 winning a nontrivial share outright, and
+every frame of every regime solving under both metrics.
 
 The metrics genuinely differ per-match (L1 and L2 nearest neighbors
 disagree on a few percent of slots), so equivalence is statistical at the
@@ -119,7 +119,7 @@ def test_l2_battery_aggregate(battery_results):
 
 
 def test_l2q8_distances_within_quantization_noise(rng):
-    """int8-quantized MXU distances agree with exact l2 to the analytic
+    """int8-quantized distances agree with exact l2 to the analytic
     quantization bound over realistic descriptor magnitudes."""
     from libviso_tpu.ops.matching import descriptor_distances
 
@@ -154,9 +154,9 @@ def test_l2q8_trajectory_matches_l2():
 @pytest.mark.slow
 @pytest.mark.parametrize("name", list(BATTERY))
 def test_l2q8_matches_l2_trajectory(battery_results, name):
-    """Same per-regime gate for the int8 MXU mode vs its parent l2:
-    the evidence that would let a future round flip the default on a
-    TPU speed measurement alone (int8 MXU rate is 4x bf16)."""
+    """Same per-regime gate for the int8 mode vs its parent l2: the
+    evidence that would let a future round flip the default on a speed
+    measurement alone."""
     seq, _, r2, rq = battery_results[name]
     assert rq.frame_ok[1:].all(), (name, "l2q8 failed frames")
     a2 = ate_rmse(r2.poses, seq.gt_poses)

@@ -27,7 +27,7 @@ def numpy_match(kp1, d1, kp2, d2, cfg, F=None):
     """Scalar mirror of match_desc (src/viso.cpp:668-726), no neighbor cap.
 
     Hard-codes the reference L1 metric: callers pin metric='l1' (the
-    engine default is the MXU l2 mode since round 2).
+    engine default is the matmul l2 mode since round 2).
     """
     xy1, xy2 = np.asarray(kp1.xy), np.asarray(kp2.xy)
     v1, v2 = np.asarray(kp1.valid), np.asarray(kp2.valid)
@@ -226,7 +226,7 @@ def test_banded_matcher_equals_dense_on_detector_output():
             feats[(t, v)] = (kp, d)
     (kp1, d1), (kp2, d2) = feats[(1, 0)], feats[(1, 1)]
     (kp1p, d1p), (kp2p, d2p) = feats[(0, 0)], feats[(0, 1)]
-    # banding is opt-in (measured slower on v5e — MatchConfig.banded)
+    # banding is opt-in (MatchConfig.banded)
     cfg = dataclasses.replace(
         cfg, stereo_match=dataclasses.replace(cfg.stereo_match,
                                               banded=True))
@@ -249,3 +249,22 @@ def test_banded_matcher_equals_dense_on_detector_output():
 
     # the default (banded=False) keeps the dense path end to end
     assert match_layout(PipelineConfig(), 416) is None
+
+
+def test_l1_distance_matches_numpy_at_full_width():
+    """The plain L1 matcher at the frame step's width: 1280 x 1280 slots of
+    128-padded descriptors.  Integer-valued descriptors (uint8 Sobel) keep
+    every partial sum exact in f32, so the result is exact."""
+    import jax
+
+    from libviso_tpu.ops.matching import _l1_desc_dist_xla
+
+    rng = np.random.default_rng(11)
+    d1 = rng.integers(-1020, 1021, (1280, 128)).astype(np.float32)
+    d2 = rng.integers(-1020, 1021, (1280, 128)).astype(np.float32)
+    got = np.asarray(jax.jit(_l1_desc_dist_xla)(d1, d2))
+    want = np.concatenate([
+        np.abs(d1[i:i + 64, None, :].astype(np.int64)
+               - d2[None, :, :].astype(np.int64)).sum(-1)
+        for i in range(0, 1280, 64)])
+    np.testing.assert_array_equal(got, want.astype(np.float32))

@@ -4,7 +4,7 @@ Launches two actual Python processes that rendezvous through
 ``initialize_from_env`` (VISO_* env contract), build a global 4-device
 mesh (2 procs x 2 virtual CPU devices), assemble a globally-sharded array
 from process-local chunks, and reduce across processes — the full
-multi-controller path minus the TPU hardware.  Skips rather than fails if
+multi-controller path minus the accelerators.  Skips rather than fails if
 the sandbox blocks localhost gRPC.
 """
 

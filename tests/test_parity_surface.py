@@ -34,10 +34,6 @@ SURFACE = [
     ("libviso_tpu.ops.matching", "match_descriptors"),
     ("libviso_tpu.ops.matching", "match_frame_triple"),
     ("libviso_tpu.ops.matching", "match_problem_batch"),
-    ("libviso_tpu.ops.pallas_matching", "l1_distance_matrix"),
-    ("libviso_tpu.ops.pallas_fused_match", "fused_gated_two_min"),
-    ("libviso_tpu.ops.pallas_fused_match", "fused_sweep_two_min"),
-    ("libviso_tpu.ops.pallas_fused_match", "sorted_fused_two_min"),
     # C7 epipolar distances
     ("libviso_tpu.geometry.mvg", "sampson_distance"),
     ("libviso_tpu.geometry.mvg", "algebraic_distance"),

@@ -79,7 +79,7 @@ def test_first_frame_is_identity(synthetic_run):
 
 @pytest.mark.slow
 def test_l2_metric_trajectory_close_to_l1():
-    """config.py claims the MXU l2 metric yields near-identical match sets;
+    """config.py claims the matmul l2 metric yields near-identical match sets;
     back it with a trajectory-level check."""
     seq = generate_sequence(num_frames=8, num_points=400, width=256,
                             height=128, f=200.0, seed=9)
@@ -103,7 +103,7 @@ def test_chunked_streaming_bit_identical():
     """build_frame_chunk (K frames per dispatch) IS the per-frame step
     scanned — outputs and carried state must be bitwise identical to K
     separate step calls.  This is the evidence gate for bench.py's
-    chunked-streaming default (docs/performance.md "Chunked streaming")."""
+    chunked-streaming default."""
     import jax
 
     from libviso_tpu.config import Calib

@@ -51,3 +51,23 @@ def test_trace_writes_dir(tmp_path):
     import os
 
     assert os.path.isdir(logdir) and os.listdir(logdir)
+
+
+class _FakeDevice:
+    def __init__(self, platform, kind):
+        self.platform = platform
+        self.device_kind = kind
+
+
+def test_device_peaks_h100():
+    dev = _FakeDevice("gpu", "NVIDIA H100 80GB HBM3")
+    assert profiling.device_peaks(dev) == (67e12, 3.35e12)
+    lower = _FakeDevice("gpu", "nvidia h100 80gb hbm3")
+    assert profiling.device_peaks(lower) == (67e12, 3.35e12)
+
+
+def test_device_peaks_unknown_accelerator_is_an_error():
+    import pytest
+
+    with pytest.raises(ValueError, match="no published peaks"):
+        profiling.device_peaks(_FakeDevice("gpu", "Some Future GPU"))
